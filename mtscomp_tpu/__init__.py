@@ -1,4 +1,4 @@
-"""mtscomp_tpu: TPU-native lossless compression for multichannel time series.
+"""mtscomp_tpu: accelerator-native lossless compression for multichannel time series.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 ``int-brain-lab/mtscomp`` (reference: /root/reference/mtscomp.py):
@@ -9,11 +9,11 @@ A ground-up JAX/XLA/Pallas re-design of the capabilities of
   (reference: mtscomp.py:514-859),
 - a byte-identical legacy **zlib** path (format v1.0), and
 - a new chunk- and lane-parallel **rANS** path (format v2.0) whose decode
-  is a vectorized TPU program (see ``mtscomp_tpu.models.rans`` and
+  is a vectorized device program (see ``mtscomp_tpu.models.rans`` and
   ``mtscomp_tpu.ops``).
 
 Public API mirrors the reference's ``__all__`` (mtscomp.py:43) plus the
-TPU-side extensions.
+device-side extensions.
 """
 
 __version__ = '0.1.0'

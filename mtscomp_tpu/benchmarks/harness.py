@@ -80,9 +80,8 @@ def mtscomp_perf(arr, sample_rate, algorithm='ans', n_threads=None,
     """Time one compress/decompress cycle; returns a metrics dict.
 
     ``device=True`` times the device pipeline INCLUDING host<->device
-    transfers — representative on PCIe-attached accelerators, not on
-    tunneled dev attachments (use the staged measurements in
-    ``baseline_report`` for device kernel rates there).
+    transfers (``baseline_report`` has the staged device rates without
+    them).
     """
     from .. import compress, decompress
     from ..parallel.pipeline import decompress_to_array

@@ -3,7 +3,7 @@
 Flag surface matches the reference CLIs (mtscomp.py:1000-1179), including
 the shared ``-nc/--no-check``, ``-v/--debug``, ``-p/--cpus`` options, the
 ``--set-default`` persistence flag, and the traceback-hiding exception
-hook. New: ``-a/--algorithm`` to select the TPU rANS format (v2).
+hook. New: ``-a/--algorithm`` to select the lane-parallel rANS format (v2).
 """
 
 import argparse
@@ -40,14 +40,14 @@ def _shared_options(parser):
 
 
 def _device_option(parser):
+    # No argparse choices: the config check raises the ValueError that
+    # names the valid values.
     parser.add_argument('--device', type=str,
-                        choices=('auto', 'tpu', 'cpu', 'none'),
-                        help="accelerator use: decode defaults to "
-                             "'auto' (device pipeline on real "
-                             "accelerators); encode uses the device "
-                             "only when 'tpu'/'cpu' is forced; 'none' "
-                             "keeps everything on the host codec (use "
-                             "on machines with slow accelerator links)")
+                        help="device pipeline use: 'auto' (default: "
+                             "routed by the measured GPU link), 'gpu' "
+                             "(forced; an error without a GPU), 'cpu' "
+                             "(JAX's CPU backend) or 'none' (host codec "
+                             "only)")
 
 
 def _parse_diff_order(val):
@@ -151,7 +151,7 @@ def mtscomp_parser():
     parser.add_argument('-c', '--chunk', type=int, help='chunk duration')
     parser.add_argument('-a', '--algorithm', type=str,
                         help="compression algorithm: 'zlib' (legacy) or "
-                             "'ans' (TPU-parallel)")
+                             "'ans' (lane-parallel)")
     parser.add_argument('--ans-tables', type=str, dest='ans_table_mode',
                         choices=('plane', 'segment'),
                         help="ans frequency tables: clustered per "
@@ -658,7 +658,7 @@ def mtsrecompress(args=None):
     parser = argparse.ArgumentParser(
         description='Re-encode a compressed file with another codec '
                     'without materializing the raw data: upgrade legacy '
-                    'zlib files to the TPU v2 format (-a ans), export '
+                    'zlib files to the v2 format (-a ans), export '
                     'v2 files for reference-implementation consumers '
                     '(-a zlib), or re-encode with different ans '
                     'parameters. The source\'s sha1_uncompressed is '

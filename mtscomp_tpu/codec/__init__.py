@@ -9,7 +9,7 @@ Available codecs:
 - ``zlib`` — legacy format v1.0, byte-identical to the reference
   (deflate of the order-flattened diffed chunk, mtscomp.py:394).
 - ``ans``  — format v2.0, interleaved-lane rANS designed for vectorized
-  TPU decode.
+  device decode.
 """
 
 from .zlib_codec import ZlibCodec

@@ -1,7 +1,7 @@
 """Format-v2 chunk codec: zigzag + byte planes + grouped 128-lane rANS.
 
 Replaces the reference's zlib stage (mtscomp.py:394, 619) with an entropy
-layout engineered for TPU vector hardware (see models/rans.py for the
+layout engineered for wide vector hardware (see models/rans.py for the
 coder itself). Each chunk payload is fully self-contained (same
 invariant as the zlib chunks), so random access, ``chop`` and the
 offset-table format all work unchanged.
@@ -55,7 +55,7 @@ Segments are derived, not stored: RANS planes in index order contribute
 ``ceil(n_coded / seg)`` segments each; the flat list is grouped by
 ``group_rows``.
 
-Channel-aligned mode (flags bit2, the TPU fast layout): with
+Channel-aligned mode (flags bit2, the device fast layout): with
 ``C = n_head`` channels and ``Tcs = n_coded / C`` diffed samples per
 channel, each channel's plane stream is padded with zero symbols to
 ``Tp = ceil(Tcs / 128) * 128`` and segments hold ``k`` whole channels

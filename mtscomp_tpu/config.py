@@ -3,7 +3,7 @@
 Parity: reproduces the reference's config system (mtscomp.py:46-57,
 176-209) — including the ``None``-skipping merge (198-199) that lets CLI
 flags that were not passed fall through to file defaults — and extends it
-with the TPU-side keys (``algorithm='ans'`` support, device backend,
+with the device-side keys (``algorithm='ans'`` support, device backend,
 rANS lane counts).
 
 The user file is ``~/.mtscomp`` so that defaults configured for the
@@ -21,7 +21,7 @@ from .utils.misc import Bunch
 #: the same trick with a list, mtscomp.py:46-57).
 DEFAULT_CONFIG = (
     # --- keys shared with the reference (mtscomp.py:46-57) ---
-    ('algorithm', 'zlib'),          # 'zlib' (legacy v1.0) or 'ans' (TPU v2.0)
+    ('algorithm', 'zlib'),          # 'zlib' (legacy v1.0) or 'ans' (lane-parallel v2.0)
     ('cache_size', 10),             # decoded chunks kept in the Reader LRU
     ('check_after_compress', True),
     ('check_after_decompress', True),
@@ -41,10 +41,10 @@ DEFAULT_CONFIG = (
                                     # False: mtscomp.py:52)
     ('do_time_diff', True),
     ('n_threads', multiprocessing.cpu_count()),
-    # --- TPU-native extensions ---
-    ('device', 'auto'),             # 'auto' | 'tpu' | 'cpu' | 'none' (host only)
+    # --- format v2 and device extensions ---
+    ('device', 'auto'),             # 'auto' | 'gpu' | 'cpu' | 'none' (host only)
     ('ans_seg_log2', 16),           # log2 symbols per rANS segment (128 lanes each)
-    ('ans_channel_segments', True),  # channel-aligned segments (TPU fast layout)
+    ('ans_channel_segments', True),  # channel-aligned segments (device fast layout)
     ('ans_table_mode', 'segment'),  # 'segment' (default: clustered per-segment
                                     # tables — up to +13% ratio on channel-
                                     # heterogeneous bands for ~10% encode
@@ -84,6 +84,21 @@ def config_path():
 CONFIG_PATH = config_path()
 
 
+#: Values of the ``device`` key. 'gpu' and 'cpu' force the device
+#: pipeline on that JAX platform (an error when JAX runs on another);
+#: 'auto' routes by measurement; 'none' keeps everything on the host.
+DEVICES = ('auto', 'gpu', 'cpu', 'none')
+
+
+def check_device_name(device):
+    """Raise ValueError unless ``device`` is one of :data:`DEVICES`."""
+    if device in DEVICES:
+        return device
+    raise ValueError("device must be one of %s, got %r (the device path "
+                     "runs on a GPU: device='gpu')."
+                     % (', '.join(repr(d) for d in DEVICES), device))
+
+
 def read_config(**kwargs):
     """Merge defaults, the user config file, and kwargs (skipping Nones)."""
     params = dict(DEFAULT_CONFIG)
@@ -94,6 +109,7 @@ def read_config(**kwargs):
         user = {}
     for source in (user, kwargs):
         params.update({k: v for k, v in source.items() if v is not None})
+    check_device_name(params['device'])
     return Bunch(params)
 
 

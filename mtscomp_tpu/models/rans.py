@@ -4,18 +4,17 @@ Design
 ------
 The reference's entropy stage is a sequential zlib stream per chunk
 (mtscomp.py:394, 619), which cannot be parallelized *within* a chunk.
-Format v2 replaces it with a layout designed around the TPU vector unit:
+Format v2 replaces it with a layout designed for wide vector hardware:
 
 - A chunk's byte planes are cut into **segments** of contiguous symbols;
   each segment is coded by **128 interleaved rANS lanes** (lane ``j``
   takes symbols ``j, j+128, ...``) — one segment maps onto one 128-lane
   vector register row.
 - Segments are packed into **groups of R <= 32 rows** (one (32, 128)
-  vector — TPU vector ops cost roughly the same at 8 and 32 sublanes,
-  so wide groups quarter the per-symbol cost). A group shares a single
-  renormalization word stream, merged in **decoder order**: at each
-  step, the lanes whose state underflows read one 16-bit word each, in
-  row-major lane order. The vectorized decoder therefore consumes the
+  block: wide groups amortize the per-step overhead over 4096 lanes).
+  A group shares a single renormalization word stream, merged in
+  **decoder order**: at each step, the lanes whose state underflows
+  read one 16-bit word each, in row-major lane order. The vectorized decoder therefore consumes the
   stream strictly front-to-back — no per-lane cursors, just a masked
   rank within the step.
 - Each row carries its own frequency table (so one group can mix byte
@@ -28,11 +27,11 @@ Coder parameters (fixed for the format):
 - **minimum frequency 8** for present symbols: every 16-slot bucket of
   the 4096-slot table then contains at most 3 symbols, so the decoder's
   slot->symbol lookup is one 256-entry coarse lookup plus at most two
-  compare-increments over a dense alphabet — the shape TPU shuffles
-  want (no binary search). This encoder quantizes frequencies to
-  multiples of 8 (see :func:`quantize_freqs`), tightening the bound to
-  two symbols per bucket so the device decoder needs ONE fixup for
-  tables it wrote itself;
+  compare-increments over a dense alphabet (no binary search). This
+  encoder quantizes frequencies to multiples of 8 (see
+  :func:`quantize_freqs`), so every symbol boundary of the tables it
+  writes falls on a multiple of 8 and the device decoder's
+  slot->symbol table keeps one entry per 8 slots;
 - per (step, lane) visit at most ONE word is emitted/read, making the
   decode step a single masked vector operation.
 
@@ -259,8 +258,7 @@ def encoder_tables(freqs):
     """Division-free per-symbol encoder tables (reciprocal scheme).
 
     The encoder update needs ``x // f`` and ``x % f`` with a per-lane
-    divisor — TPUs lower vector integer division very poorly, so the
-    device encoder divides via the Granlund-Montgomery round-up
+    divisor; the device encoder divides via the Granlund-Montgomery round-up
     reciprocal (the unknown-divisor scheme compilers/libdivide use),
     exact for ALL 32-bit x::
 

@@ -1,30 +1,16 @@
-"""Device (TPU) delta transform and inverse prefix-scan.
+"""Device delta transform and inverse prefix scan (plain XLA ops).
 
 Semantics identical to the host ops in ``ops/delta.py`` (reference:
 mtscomp.py:143-169): first-order diff along time keeping row 0 verbatim,
 and the in-dtype cumulative sum inverse. Integer exactness relies on
-modular (wrapping) arithmetic — all device ops here stay in the integer
-domain or in ranges where f32 is exact, so round trips are byte-exact.
-
-Two implementations:
-
-- ``*_jnp``: plain XLA ops (work on any backend, fuse well);
-- ``cumsum_time_pallas``: a Pallas TPU kernel that streams (time x
-  channel) tiles and carries the per-channel running sum in VMEM across
-  the time grid, computing in-tile prefix sums on the MXU via a
-  lower-triangular ones matmul (f32 is exact for partial sums < 2^24).
+modular (wrapping) arithmetic: every op here stays in the integer
+domain, where addition is exact in any order, so round trips are
+byte-exact whatever summation order XLA picks.
 
 All functions operate on batched chunks ``(B, T, C)``.
 """
 
-import functools
-
-import jax
 import jax.numpy as jnp
-import numpy as np
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def diff_time_jnp(x):
@@ -61,369 +47,3 @@ def zigzag_encode_jnp(v):
     s = v.astype(jnp.dtype('int%d' % bits))
     u = s.astype(jnp.dtype('uint%d' % bits))
     return (u * 2) ^ (s >> (bits - 1)).astype(u.dtype)
-
-
-# --- Pallas kernel: carried int16 prefix scan over time tiles ---------------
-
-def _byte_split_prefix(x, tri, nbytes, transpose_scan=False):
-    """Exact modular prefix sums via byte-split MXU matmuls.
-
-    ``x`` int32 holding ``nbytes``-wide elements; split into unsigned
-    bytes so the bf16 matmul inputs stay exact (values <= 255; MXU
-    accumulates in f32, exact below 2^24) — avoids the 3x cost of
-    HIGHEST-precision f32 emulation. Recombined in int32, which wraps
-    mod 2^32 — truncation to the element width gives np.cumsum(dtype=...)
-    semantics for 1/2/4-byte integers alike.
-    """
-    total = None
-    for k in range(nbytes):
-        plane = ((x >> (8 * k)) & 255).astype(jnp.float32)
-        p = jax.lax.dot(plane, tri, preferred_element_type=jnp.float32) \
-            if transpose_scan else \
-            jax.lax.dot(tri, plane, preferred_element_type=jnp.float32)
-        term = p.astype(jnp.int32) << (8 * k)
-        total = term if total is None else total + term
-    return total
-
-
-def _cumsum_kernel(x_ref, out_ref, carry_ref, *, out_dtype):
-    """One (Tt, Ct) integer tile: in-tile prefix sum + carried offset.
-
-    Grid is (B, C_tiles, T_tiles) with the time dimension innermost, so
-    ``carry_ref`` (the running per-channel sum, wrapped to the element
-    dtype) is reset whenever a new (batch, channel-tile) stripe starts.
-    """
-    t = pl.program_id(2)
-
-    @pl.when(t == 0)
-    def _():
-        carry_ref[...] = jnp.zeros_like(carry_ref)
-
-    x = x_ref[0].astype(jnp.int32)                        # (Tt, Ct)
-    tt = x.shape[0]
-    nbytes = jnp.dtype(out_dtype).itemsize
-    row = jax.lax.broadcasted_iota(jnp.int32, (tt, tt), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (tt, tt), 1)
-    tri = (col <= row).astype(jnp.float32)
-    prefix = _byte_split_prefix(x, tri, nbytes)
-    out = prefix.astype(out_dtype) + carry_ref[...]       # wraps in-dtype
-    out_ref[0] = out
-    carry_ref[...] = out[-1:, :]
-
-
-@functools.partial(jax.jit, static_argnames=('t_tile', 'interpret'))
-def cumsum_time_pallas(d, t_tile=256, interpret=False):
-    """Pallas TPU int16/int32 prefix scan along time for (B, T, C) chunks.
-
-    Requires T % t_tile == 0 and C % 128 == 0 (callers pad channels;
-    chunk lengths are padded to the tile and trimmed).
-    """
-    B, T, C = d.shape
-    assert d.dtype in (jnp.int16, jnp.int32)
-    assert T % t_tile == 0 and C % 128 == 0
-    grid = (B, C // 128, T // t_tile)
-    return pl.pallas_call(
-        functools.partial(_cumsum_kernel, out_dtype=d.dtype),
-        grid=grid,
-        in_specs=[pl.BlockSpec((1, t_tile, 128),
-                               lambda b, c, t: (b, t, c),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, t_tile, 128),
-                               lambda b, c, t: (b, t, c),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, T, C), d.dtype),
-        scratch_shapes=[pltpu.VMEM((1, 128), d.dtype)],
-        interpret=interpret,
-    )(d)
-
-
-def _cumsum_t_kernel(x_ref, head_ref, out_ref, carry_ref, *, exclusive,
-                     out_dtype):
-    """Fused transpose + time scan: (128 ch, 128 t) tile -> (128 t, 128 ch).
-
-    Input is channel-major (chunk elements in F order, one row per
-    channel); the scan runs along lanes (time) via byte-split MXU
-    matmuls, then the tile is transposed on write — merging what would
-    otherwise be separate transpose and scan passes over HBM.
-
-    ``exclusive`` mode seeds the carry with the per-channel verbatim
-    head values and emits the EXCLUSIVE prefix: output sample t is
-    ``head + sum(diffs[:t])``, so the head row lands at t=0 with no
-    concatenation pass.
-    """
-    t = pl.program_id(2)
-
-    @pl.when(t == 0)
-    def _():
-        carry_ref[...] = head_ref[0, :, 0:1] if exclusive \
-            else jnp.zeros_like(carry_ref)
-
-    x = x_ref[0].astype(jnp.int32)                        # (Ct ch, 128t)
-    nbytes = jnp.dtype(out_dtype).itemsize
-    row = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    triu = (row <= col).astype(jnp.float32)               # prefix over t
-    prefix = _byte_split_prefix(x, triu, nbytes, transpose_scan=True)
-    if exclusive:
-        # Subtract in int32 (v5e has no s16 vector subtract), wrap, then
-        # in-dtype adds only.
-        excl = (prefix - x).astype(out_dtype)
-        out = excl + carry_ref[...]                         # wraps
-        carry_ref[...] = carry_ref[...] + prefix[:, -1:].astype(out_dtype)
-    else:
-        out = prefix.astype(out_dtype) + carry_ref[...]     # wraps
-        carry_ref[...] = out[:, -1:]
-    out_ref[0] = out.T
-
-
-@functools.partial(jax.jit, static_argnames=('interpret',))
-def cumsum_time_transposed(elems, head=None, interpret=False):
-    """(B, C, T) channel-major int16/int32 -> (B, T, C) integrated samples.
-
-    Computes the in-dtype time cumsum AND the layout transpose in one
-    pass. Requires T % 128 == 0 and C % 128 == 0 (callers pad; padded
-    channels produce garbage columns to trim, padded time extends the
-    last value).
-
-    With ``head`` (B, C) of the same dtype, the scan is exclusive
-    seeded by the head: out[:, t] = head + sum(elems[:, :, :t]) — i.e.
-    ``elems`` hold the diffs and ``head`` the verbatim first sample per
-    channel.
-    """
-    from .pallas_rans import force_interpret
-    interpret = interpret or force_interpret()
-    B, C, T = elems.shape
-    assert elems.dtype in (jnp.int16, jnp.int32)
-    assert T % 128 == 0 and C % 128 == 0
-    ct = _channel_tile(C)
-    exclusive = head is not None
-    if head is None:
-        head3 = jnp.zeros((B, C, 128), elems.dtype)
-    else:
-        # Lane-broadcast: 1-lane blocks are off Mosaic's fast path.
-        assert head.dtype == elems.dtype
-        head3 = jnp.broadcast_to(head.reshape(B, C, 1), (B, C, 128))
-    return pl.pallas_call(
-        functools.partial(_cumsum_t_kernel, exclusive=exclusive,
-                          out_dtype=elems.dtype),
-        grid=(B, C // ct, T // 128),
-        in_specs=[pl.BlockSpec((1, ct, 128), lambda b, c, t: (b, c, t),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, ct, 128), lambda b, c, t: (b, c, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 128, ct), lambda b, c, t: (b, t, c),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, T, C), elems.dtype),
-        scratch_shapes=[pltpu.VMEM((ct, 1), elems.dtype)],
-        interpret=interpret,
-    )(elems, head3)
-
-
-def _channel_tile(C):
-    """Widest 128-multiple channel tile (<= 512) dividing C.
-
-    The time axis is the sequential carry, but channels are
-    embarrassingly parallel — wider channel tiles run the same per-tile
-    op sequence over more rows (the lever on issue-rate-bound parts)
-    and shrink the grid. 512 rows of 128 lanes keeps every intermediate
-    comfortably in VMEM.
-    """
-    ct = 128
-    for cand in (256, 384, 512):
-        if C % cand == 0:
-            ct = cand
-    return ct
-
-
-def _cumsum_t8_kernel(x_ref, head_ref, hi_ref, out_ref, carry_ref):
-    """Fused combine + transpose + exclusive time scan from u8 planes.
-
-    Input tile: (128 ch, 128 t) uint8 low-byte plane codes. The chunk's
-    constant high byte and the inverse zigzag run in-register, so the
-    decode pipeline never materializes the combined int16 diff stream —
-    one u8 read and one i16 write per element instead of the separate
-    combine pass (u8 read + i16 write + i16 read) the generic path
-    pays. Scan + transpose semantics match ``_cumsum_t_kernel``'s
-    exclusive mode (head-seeded; head lands at t=0).
-    """
-    t = pl.program_id(2)
-
-    @pl.when(t == 0)
-    def _():
-        carry_ref[...] = head_ref[0, :, 0:1]
-
-    ct = x_ref.shape[1]
-    hi_c = jnp.broadcast_to(hi_ref[0, 0:1, :], (ct, 128))
-    z = x_ref[0].astype(jnp.int32) | (hi_c << 8)          # 16-bit code
-    # Inverse zigzag on the 16-bit code: i32 result equals the int16
-    # diff sign-extended ((z>>1) ^ -(z&1)).
-    x = (z >> 1) ^ -(z & 1)
-    lo = (x & 255).astype(jnp.float32)
-    hi = ((x >> 8) & 255).astype(jnp.float32)             # mod-2^16 bytes
-    row = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    triu = (row <= col).astype(jnp.float32)               # prefix over t
-    p_lo = jax.lax.dot(lo, triu, preferred_element_type=jnp.float32)
-    p_hi = jax.lax.dot(hi, triu, preferred_element_type=jnp.float32)
-    prefix = p_lo.astype(jnp.int32) + (p_hi.astype(jnp.int32) << 8)
-    excl = (prefix - x).astype(jnp.int16)
-    out = excl + carry_ref[...]                           # wraps
-    carry_ref[...] = carry_ref[...] + prefix[:, -1:].astype(jnp.int16)
-    out_ref[0] = out.T
-
-
-@functools.partial(jax.jit, static_argnames=('interpret',))
-def cumsum_time_transposed_u8(planes, head, hi, interpret=False):
-    """(B, C, T) u8 low-byte codes -> (B, T, C) decoded int16 samples.
-
-    Fuses the plane combine (constant high byte ``hi``, (B,) int32),
-    inverse zigzag, in-dtype time cumsum and the F->C transpose into
-    one pass. ``head`` (B, C) int16 seeds the exclusive scan (verbatim
-    first samples). Requires T % 128 == 0 and C % 128 == 0.
-    """
-    from .pallas_rans import force_interpret
-    interpret = interpret or force_interpret()
-    B, C, T = planes.shape
-    assert planes.dtype == jnp.uint8
-    assert T % 128 == 0 and C % 128 == 0
-    ct = _channel_tile(C)
-    head3 = jnp.broadcast_to(head.reshape(B, C, 1), (B, C, 128))
-    hi2 = jnp.broadcast_to(hi.reshape(B, 1, 1).astype(jnp.int32),
-                           (B, 8, 128))
-    return pl.pallas_call(
-        _cumsum_t8_kernel,
-        grid=(B, C // ct, T // 128),
-        in_specs=[pl.BlockSpec((1, ct, 128), lambda b, c, t: (b, c, t),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, ct, 128), lambda b, c, t: (b, c, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, 8, 128), lambda b, c, t: (b, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 128, ct), lambda b, c, t: (b, t, c),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, T, C), jnp.int16),
-        scratch_shapes=[pltpu.VMEM((ct, 1), jnp.int16)],
-        interpret=interpret,
-    )(planes, head3, hi2)
-
-
-def _cumsum_t8_tail_kernel(x_ref, xb_ref, head_ref, headb_ref, hi_ref,
-                           out_ref, carry_ref, *, cpad):
-    """Two-provenance variant of ``_cumsum_t8_kernel`` for the ragged
-    385th-channel layout: the bulk channels (x_ref, from the full-group
-    decode call) and the short tail channels (xb_ref, from the 1-row
-    tail-group call) are separate HBM buffers — concatenating them
-    OUTSIDE the kernel would cost a full extra HBM pass over the batch,
-    so the merge happens here, in VMEM, as part of the one finalize
-    pass the fused decode already makes. The tail rows are padded to
-    ``cpad`` in-register so the compute/output tile stays a
-    128-multiple (identical op shapes to the single-ref kernel at the
-    same total width). Grid is (B, T/128): one channel tile spanning
-    all rows.
-    """
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        carry_ref[...] = jnp.concatenate(
-            [head_ref[0, :, 0:1],
-             jnp.pad(headb_ref[0, :, 0:1],
-                     ((0, cpad - headb_ref.shape[1]), (0, 0)))], axis=0)
-
-    ca = x_ref.shape[1]
-    xb = jnp.pad(xb_ref[0], ((0, cpad - xb_ref.shape[1]), (0, 0)))
-    ct = ca + cpad
-    hi_c = jnp.broadcast_to(hi_ref[0, 0:1, :], (ct, 128))
-    z = jnp.concatenate([x_ref[0], xb], axis=0).astype(jnp.int32) \
-        | (hi_c << 8)
-    x = (z >> 1) ^ -(z & 1)
-    lo = (x & 255).astype(jnp.float32)
-    hi = ((x >> 8) & 255).astype(jnp.float32)
-    row = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    triu = (row <= col).astype(jnp.float32)
-    p_lo = jax.lax.dot(lo, triu, preferred_element_type=jnp.float32)
-    p_hi = jax.lax.dot(hi, triu, preferred_element_type=jnp.float32)
-    prefix = p_lo.astype(jnp.int32) + (p_hi.astype(jnp.int32) << 8)
-    excl = (prefix - x).astype(jnp.int16)
-    out = excl + carry_ref[...]
-    carry_ref[...] = carry_ref[...] + prefix[:, -1:].astype(jnp.int16)
-    out_ref[0] = out.T
-
-
-@functools.partial(jax.jit, static_argnames=('interpret',))
-def cumsum_time_transposed_u8_tail(planes, tail, head, tail_head, hi,
-                                   interpret=False):
-    """``cumsum_time_transposed_u8`` with a second (short) channel block.
-
-    ``planes`` (B, CA, T) and ``tail`` (B, CB, T) u8 low-byte codes from
-    two decode-kernel outputs; ``head``/``tail_head`` (B, CA)/(B, CB)
-    int16 verbatim first samples. Output is (B, T, CA + CBpad) int16
-    where CBpad rounds the total width to a 128 multiple — decoded
-    channels are [0, CA + CB), the rest is padding to trim. CA must be
-    a multiple of 128 and CB of 8.
-    """
-    from .pallas_rans import force_interpret
-    interpret = interpret or force_interpret()
-    B, CA, T = planes.shape
-    CB = tail.shape[1]
-    assert planes.dtype == jnp.uint8 and tail.dtype == jnp.uint8
-    assert T % 128 == 0 and CA % 128 == 0 and CB % 8 == 0
-    assert tail.shape == (B, CB, T)
-    cpad = (-(-(CA + CB) // 128) * 128) - CA
-    ct = CA + cpad
-    head3 = jnp.broadcast_to(head.reshape(B, CA, 1), (B, CA, 128))
-    headb3 = jnp.broadcast_to(tail_head.reshape(B, CB, 1), (B, CB, 128))
-    hi2 = jnp.broadcast_to(hi.reshape(B, 1, 1).astype(jnp.int32),
-                           (B, 8, 128))
-    return pl.pallas_call(
-        functools.partial(_cumsum_t8_tail_kernel, cpad=cpad),
-        grid=(B, T // 128),
-        in_specs=[pl.BlockSpec((1, CA, 128), lambda b, t: (b, 0, t),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, CB, 128), lambda b, t: (b, 0, t),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, CA, 128), lambda b, t: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, CB, 128), lambda b, t: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, 8, 128), lambda b, t: (b, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 128, ct), lambda b, t: (b, t, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, T, ct), jnp.int16),
-        scratch_shapes=[pltpu.VMEM((ct, 1), jnp.int16)],
-        interpret=interpret,
-    )(planes, tail, head3, headb3, hi2)
-
-
-def pad_to(x, multiple, axis):
-    """Zero-pad ``axis`` up to the next multiple (no-op when aligned)."""
-    size = x.shape[axis]
-    target = -(-size // multiple) * multiple
-    if target == size:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, target - size)
-    return jnp.pad(x, widths)
-
-
-def cumsum_time(d, use_pallas=None, interpret=False):
-    """Dispatch: Pallas kernel on TPU (int16), XLA everywhere else."""
-    if use_pallas is None:
-        use_pallas = (d.dtype == jnp.int16
-                      and jax.default_backend() == 'tpu')
-    if use_pallas and jax.default_backend() != 'tpu':
-        # Explicit use_pallas on a non-TPU backend means interpret mode
-        # (Mosaic cannot lower there).
-        interpret = True
-    if not use_pallas:
-        return cumsum_time_jnp(d)
-    B, T, C = d.shape
-    # 128-row tiles: the O(Tt^2) triangular matmul stays cheap and the
-    # grid stays modest; zero-pad tails (they contribute nothing).
-    t_tile = 128
-    dp = pad_to(d, t_tile, axis=1)
-    dp = pad_to(dp, 128, axis=2)
-    out = cumsum_time_pallas(dp, t_tile=t_tile, interpret=interpret)
-    return out[:, :T, :C]

@@ -1,11 +1,12 @@
-"""Batched grouped-rANS decode as a JAX program (runs on TPU under jit).
+"""Batched grouped-rANS decode and encode as plain XLA programs.
 
 Decodes N independent *groups* (GROUP_ROWS=32 segment rows x 128 lanes
 each, see models/rans.py) simultaneously: one scan step advances all
-N*32*128 lanes
-and consumes each group's merged word stream strictly front-to-back.
-Bit-exact against the normative NumPy coder (tested); the Pallas kernel
-in ``ops/pallas_rans.py`` is the hand-tuned version of the same step.
+N*32*128 lanes and consumes each group's merged word stream strictly
+front-to-back. Bit-exact against the normative NumPy coder (tested);
+the GPU kernel in ``ops/gpu_rans.py`` runs the same step with the loop
+inside one program per group. The encode scan is the device encoder
+on every platform.
 
 Static shapes per call signature:
 
@@ -30,24 +31,18 @@ from ..models.rans import SCALE_BITS, SCALE, RANS_L, LANES, GROUP_ROWS
 def derive_tables(freqs):
     """cumfreq and dense slot->symbol tables from (N, R, 256) freqs.
 
-    Both branches compute ``count of uppers <= slot`` per slot — the
-    TPU form as a vector compare-reduce (VPU-friendly), the host form
-    as a per-row binary search (the broadcast compare is ~1M scalar
-    ops per table row on CPU). Bit-identical, including f=0 ties.
+    ``slot2sym[slot]`` counts the symbol upper bounds ``<= slot`` (f=0
+    ties included): a scatter-add of one mark per upper bound and a
+    prefix sum. Chosen on an H100 over a broadcast compare-reduce and a
+    per-row binary search (PERF.md).
     """
     cum = jnp.cumsum(freqs, axis=-1) - freqs           # exclusive prefix
-    slots = jnp.arange(SCALE, dtype=jnp.int32)
     upper = cum + freqs                                # (N, R, 256)
-    if jax.default_backend() == 'tpu':
-        slot2sym = jnp.sum(
-            slots[None, None, :, None] >= upper[:, :, None, :],
-            axis=-1).astype(jnp.int32)                 # (N, R, 4096)
-    else:
-        flat = upper.reshape(-1, 256)
-        slot2sym = jax.vmap(
-            lambda u: jnp.searchsorted(u, slots, side='right'))(flat)
-        slot2sym = slot2sym.reshape(upper.shape[0], upper.shape[1],
-                                    SCALE).astype(jnp.int32)
+    n, r = upper.shape[:2]
+    marks = jnp.zeros((n * r, SCALE + 1), jnp.int32)
+    marks = marks.at[jnp.arange(n * r)[:, None],
+                     upper.reshape(n * r, 256)].add(1)
+    slot2sym = jnp.cumsum(marks[:, :SCALE], axis=1).reshape(n, r, SCALE)
     return cum, slot2sym
 
 
@@ -118,8 +113,8 @@ def encode_groups(symbols, enc_pk, enc_rcp, counts, *, n_steps):
     counts  (N, R)        int32 — symbols per row
 
     Tables come from :func:`mtscomp_tpu.models.rans.encoder_tables`;
-    the state update is division-free (reciprocal mulhi — TPUs lower
-    vector integer division catastrophically).
+    the state update is division-free (round-up reciprocal and a high
+    multiply, exact for every 32-bit state).
 
     Returns ``(states, words_dense, emit)`` where ``states`` are the
     (N, R, 128) uint32 decoder start states and ``words_dense`` /
@@ -178,24 +173,29 @@ def compact_words(words_dense, emit, n_words_max):
     """Device stream compaction: (S, N, RK) dense -> (N, W) merged stream.
 
     Scatter each emitted word to its rank (cumulative count in decoder
-    order); masked slots land in a discard slot past the stream end.
+    order); masked slots get an index past the end and are dropped.
+    Every written index is unique: on the GPU a scatter whose masked
+    slots all share one in-bounds discard index serializes on it (no
+    result within 35 s for 32 groups at the 385-channel geometry on an
+    H100, against 2 ms with the masked slots dropped).
     """
     S, N, RK = words_dense.shape
     w = jnp.transpose(words_dense, (1, 0, 2)).reshape(N, S * RK)
     e = jnp.transpose(emit, (1, 0, 2)).reshape(N, S * RK)
     rank = jnp.cumsum(e, axis=1, dtype=jnp.int32) - e
     idx = jnp.where(e, rank, n_words_max)
-    out = jnp.zeros((N, n_words_max + 1), jnp.uint16)
+    out = jnp.zeros((N, n_words_max), jnp.uint16)
     out = jax.vmap(lambda o, i, v: o.at[i].set(v, mode='drop'))(out, idx, w)
-    return out[:, :n_words_max], jnp.sum(e, axis=1, dtype=jnp.int32)
+    return out, jnp.sum(e, axis=1, dtype=jnp.int32)
 
 
-def pack_groups(groups, freq_of_plane):
+def pack_groups(groups, freq_of_segment):
     """Host-side padding of parsed container groups into batch arrays.
 
     ``groups``: list of parsed group dicts (codec.ans.parse output, may
-    span several chunks). ``freq_of_plane``: callable (group_index, p) ->
-    (256,) table for plane p of that group's chunk.
+    span several chunks). ``freq_of_segment``: callable (group_index, p,
+    start) -> (256,) table of the segment of plane p starting at symbol
+    ``start`` in that group's chunk (``codec.ans.seg_freqs``).
 
     Returns ``(states, words, freqs, counts, n_steps)``; per-group
     stream lengths are read from ``g['words'].size``.
@@ -216,19 +216,19 @@ def pack_groups(groups, freq_of_plane):
         R = len(g['segments'])
         states[i, :R] = g['states']
         words[i, :g['words'].size] = g['words']
-        for r, (p, _, n) in enumerate(g['segments']):
-            freqs[i, r] = freq_of_plane(i, p)
+        for r, (p, start, n) in enumerate(g['segments']):
+            freqs[i, r] = freq_of_segment(i, p, start)
             counts[i, r] = n
     return states, words, freqs, counts, S
 
 
-def decode_groups_host(groups, freq_of_plane):
+def decode_groups_host(groups, freq_of_segment):
     """Convenience wrapper: pack, decode on device, unpack row arrays.
 
     Raises IOError when a group consumes a different number of stream
     words than its container recorded (corrupt payload).
     """
-    states, words, freqs, counts, S = pack_groups(groups, freq_of_plane)
+    states, words, freqs, counts, S = pack_groups(groups, freq_of_segment)
     out, used = decode_groups(states, jnp.asarray(words),
                               jnp.asarray(freqs), jnp.asarray(counts),
                               n_steps=S)

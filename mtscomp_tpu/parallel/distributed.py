@@ -333,12 +333,17 @@ def compress_multihost(path, out, outmeta, n_parts, part_dir=None,
         # N workers don't each spawn cpu_count C++ threads.
         nt = kwargs.get('n_threads') or multiprocessing.cpu_count()
         kw = dict(kwargs, n_threads=max(1, int(nt) // nw))
-        # device='auto' must stay HOST in spawned workers: the auto
-        # probe initializes the JAX backend, and N fresh processes
-        # racing to claim one accelerator can deadlock single-tenant
-        # attachments (and never makes sense — the device path batches
-        # internally). Explicit device='tpu'/'cpu' is honored as given.
-        if kw.get('device', 'auto') in (None, 'auto'):
+        # Spawned workers keep the host route: each JAX process
+        # reserves most of a card's memory when it first touches it, so
+        # a second process on the same card fails. 'auto' therefore
+        # resolves to 'none' in workers, and a forced GPU refuses; the
+        # CPU backend has no such limit and passes through.
+        device = kw.get('device', 'auto')
+        if device == 'gpu':
+            raise ValueError(
+                "device='gpu' cannot run in %d worker processes (one JAX "
+                "process per card); use workers=1 or device='none'." % nw)
+        if device != 'cpu':
             kw['device'] = 'none'
         todo = [t[:-1] + (kw,) for t in todo]
         ctx = multiprocessing.get_context('spawn')

@@ -12,7 +12,7 @@ bounded memory, no intermediate raw file, and the source's
 Use cases:
 
 - ``zlib -> ans``: upgrade legacy reference-written files to the
-  TPU-parallel v2 format (better ratio, device decode);
+  lane-parallel v2 format (better ratio, device decode);
 - ``ans -> zlib``: export v2 files for consumers running the reference
   implementation — with identical chunk bounds the output is exactly
   what the reference would have written for the same raw data;

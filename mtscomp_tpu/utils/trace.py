@@ -6,7 +6,8 @@ manager that (a) logs duration at the trace level, (b) emits a
 ``jax.profiler.TraceAnnotation`` so device work shows up named in XLA
 profiles, and (c) feeds an in-process aggregator queryable via
 :func:`phase_stats` — enable with ``MTSCOMP_TRACE=1`` or
-:func:`enable_tracing`.
+:func:`enable_tracing`. :func:`count` adds event counters (which route
+encoded or decoded each chunk) to the same aggregator.
 """
 
 import contextlib
@@ -44,6 +45,18 @@ def phase_stats():
     """{phase: (count, total_seconds)} accumulated since reset."""
     with _lock:
         return {k: tuple(v) for k, v in _stats.items()}
+
+
+def count(name, n=1):
+    """Add ``n`` to counter ``name`` (no-op unless tracing is enabled).
+
+    Counters share the :func:`phase_stats` aggregator with zero
+    seconds, so ``phase_stats()[name][0]`` reads them back.
+    """
+    if not _enabled:
+        return
+    with _lock:
+        _stats[name][0] += n
 
 
 @contextlib.contextmanager

@@ -252,11 +252,10 @@ def test_ratio_beats_float_domain(tmp_path_):
     assert r_bitcast < r_float
 
 
-def test_device_decode_float(tmp_path_, monkeypatch):
+def test_device_decode_float(tmp_path_, monkeypatch, kernel_interpret):
     """Bitcast float files run the device decode pipeline (float16
     through the fused i16 kernels, float32 through the int32 variant)
     and the device chunk cache, bit-exactly."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     from mtscomp_tpu.parallel.pipeline import (DeviceChunkCache,
                                                decompress_to_array)
     for dt in ('float16', 'float32'):

@@ -116,8 +116,9 @@ def test_segment_tables_all_decode_paths(tmp_path_, monkeypatch):
         from mtscomp_tpu.parallel.pipeline import decompress_to_array
         got = decompress_to_array(r)
         assert np.array_equal(got, arr)
-        # 4) Pallas kernels in interpret mode.
-        monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
+        # 4) the GPU decode kernel in interpret mode.
+        from mtscomp_tpu.parallel import pipeline
+        monkeypatch.setattr(pipeline, 'DECODER', 'kernel')
         got = decompress_to_array(r)
         assert np.array_equal(got, arr)
     finally:

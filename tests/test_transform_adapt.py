@@ -115,10 +115,9 @@ def test_adapt_stream_matches_batch_and_resume(tmp_path_):
                             transform_adapt=5)
 
 
-def test_adapt_device_batch_uniform_windows(tmp_path_, monkeypatch):
+def test_adapt_device_batch_uniform_windows(tmp_path_, monkeypatch, kernel_interpret):
     """Uniform-transform batches decode on the device path; a batch
     mixing transforms is declined (host decodes it exactly)."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     from mtscomp_tpu.parallel.pipeline import DeviceBatchDecoder
     arr = drifting_signal(n_chunks=8)
     path = write_arr(tmp_path_ / 'd.bin', arr)
@@ -281,11 +280,10 @@ def test_adapt_multihost_parts_byte_identical(tmp_path_):
         == (tmp_path_ / 'one.cbin').read_bytes()
 
 
-def test_adapt_decompress_multi_falls_back(tmp_path_, monkeypatch):
+def test_adapt_decompress_multi_falls_back(tmp_path_, monkeypatch, kernel_interpret):
     """Multi-probe decode of adaptive recordings: windows with mixed
     transforms cannot merge into one device batch — the documented
     per-reader fallback must decode exactly."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     from mtscomp_tpu.parallel.pipeline import decompress_multi
     arrs, readers = [], []
     try:
@@ -309,11 +307,10 @@ def test_adapt_decompress_multi_falls_back(tmp_path_, monkeypatch):
             r.close()
 
 
-def test_adapt_bulk_device_runs_per_window(tmp_path_, monkeypatch):
+def test_adapt_bulk_device_runs_per_window(tmp_path_, monkeypatch, kernel_interpret):
     """decompress_to_array on an adaptive file: uniform-transform runs
     each ride the device batch decoder (one call per window run) —
     mixing windows must not dump the whole span to the host path."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     from mtscomp_tpu.parallel import pipeline as pl
     arr = drifting_signal(n_chunks=8)
     path = write_arr(tmp_path_ / 'd.bin', arr)
@@ -408,12 +405,11 @@ def test_adapt_writer_reuse_probes_fresh_file(tmp_path_):
         r2.close()
 
 
-def test_adapt_device_encode_byte_identical(tmp_path_, monkeypatch):
+def test_adapt_device_encode_byte_identical(tmp_path_, monkeypatch, kernel_interpret):
     """Adaptive writers now ride the device encoder too: the batch
     splits into uniform-transform window runs, each device-encoded with
     the window's transform and the bit5 stamp — containers must be
     byte-identical to the host path's (runt runs take the host codec)."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     arr = drifting_signal(n_chunks=10)
     path = write_arr(tmp_path_ / 'd.bin', arr)
     for tag, dev in (('h', 'none'), ('d', 'cpu')):
@@ -432,10 +428,9 @@ def test_adapt_device_encode_byte_identical(tmp_path_, monkeypatch):
         r.close()
 
 
-def test_adapt_device_encode_runt_windows(tmp_path_, monkeypatch):
+def test_adapt_device_encode_runt_windows(tmp_path_, monkeypatch, kernel_interpret):
     """1-chunk windows (every run below MIN_DEVICE_SUBBATCH) fall to
     the host codec per chunk, still byte-identical to device='none'."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     arr = drifting_signal(n_chunks=6)
     path = write_arr(tmp_path_ / 'd.bin', arr)
     for tag, dev in (('h', 'none'), ('d', 'cpu')):
@@ -448,11 +443,10 @@ def test_adapt_device_encode_runt_windows(tmp_path_, monkeypatch):
         == (tmp_path_ / 'd.cbin').read_bytes()
 
 
-def test_adapt_device_unsupported_dtype_falls_back(tmp_path_, monkeypatch):
+def test_adapt_device_unsupported_dtype_falls_back(tmp_path_, monkeypatch, kernel_interpret):
     """int32 (itemsize > 2) never device-encodes: the adaptive device
     batcher must decline BEFORE probing window leaders and the host
     pool must produce the exact file."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     arr = drifting_signal(n_chunks=6).astype(np.int32)
     path = write_arr(tmp_path_ / 'd.bin', arr)
     compress(path, tmp_path_ / 'a.cbin', tmp_path_ / 'a.ch',
@@ -468,11 +462,10 @@ def test_adapt_device_unsupported_dtype_falls_back(tmp_path_, monkeypatch):
 
 
 def test_adapt_decompress_multi_merges_uniform_windows(tmp_path_,
-                                                       monkeypatch):
+                                                       monkeypatch, kernel_interpret):
     """Adaptive probes whose requested range lies in ONE window (all
     chunks share a transform) must still merge into a single device
     batch — only mixed-transform ranges fall back per reader."""
-    monkeypatch.setenv('MTSCOMP_PALLAS_INTERPRET', '1')
     from mtscomp_tpu.parallel import pipeline as pl
     arrs, readers = [], []
     calls = []
